@@ -2,7 +2,7 @@
 align2/IndexMaker4.java:100-240 — per-block count threads, keyspace
 partitioned by leading base, count -> prefix-sum -> fill).
 
-TPU-native formulation: no atomics, no per-thread partitions —
+Device formulation: no atomics, no per-thread partitions —
 1. rolling 2-bit keys of the packed genome via k shifted slices
 2. one device sort of (key, position) pairs  ->  ``sites``
 3. ``starts`` by scattering each run boundary (unique indices — a

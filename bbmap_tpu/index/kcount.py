@@ -3,9 +3,9 @@
 reference: bloom/KCountArray.java + KCountArray7MTA.java:27 — atomic
 packed-cell counting Bloom filter with multiple hashes and optional
 prefilter. Here: flat numpy cell arrays with vectorized multi-hash
-scatter-add (np.add.at) — the same HBM-resident layout a device
-scatter-add kernel uses (SURVEY.md §2.7 'TPU equivalent: HBM-resident
-packed counter arrays with vectorized multi-hash scatter-add').
+scatter-add (np.add.at) — the same device-resident layout a device
+scatter-add kernel uses (SURVEY.md §2.7: device-resident packed
+counter arrays with vectorized multi-hash scatter-add).
 
 Counts are capped at cell_max on read (count-min over the hash functions),
 matching the reference's saturating packed cells.
@@ -75,7 +75,7 @@ class KCountArray:
 
 
 class DeviceKCountArray:
-    """Device-resident counting Bloom filter — the TPU port of the
+    """Device-resident counting Bloom filter — the device port of the
     reference's atomic packed-cell counter (reference:
     bloom/KCountArray7MTA.java:27; SURVEY §2.7/§2.11 P8: 'HBM-resident
     packed counter arrays with vectorized multi-hash scatter-add').

@@ -4,7 +4,7 @@ Replaces the reference's ways-partitioned open-addressing tables
 (reference: kmer/AbstractKmerTable.java:19, jgi/BBDukF.addToMap:1785) with
 a sorted int64 value array + parallel id array: membership tests become
 vectorized searchsorted over every k-mer of a read batch at once — the
-array layout a TPU/host SIMD scan wants, rather than pointer-chasing hash
+array layout a device/host SIMD scan wants, rather than pointer-chasing hash
 forests.
 
 Value encoding follows the reference exactly (jgi/BBDukF.toValue):

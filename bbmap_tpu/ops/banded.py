@@ -3,8 +3,7 @@
 reference: align2/BandedAligner.java:10 / BandedAlignerConcrete.java /
 jni/BandedAlignerJNI.c — maxEdits-bounded banded Levenshtein used by
 Dedupe overlap verification. Implemented as a numpy band sweep (the band
-is the vector lane); a Pallas port shares the wavefront machinery of the
-MSA kernel when this becomes a measured hot spot.
+is the vector lane); ops/banded_device.py is the device twin.
 """
 
 from __future__ import annotations

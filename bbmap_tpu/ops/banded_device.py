@@ -1,4 +1,4 @@
-"""Device (TPU) batched banded edit distance — Dedupe's verification
+"""Device batched banded edit distance — Dedupe's verification
 hot loop as one jitted program per candidate-pair batch (reference:
 jni/BandedAlignerJNI.c:588-716 alignForward/RC/Reverse/RC,
 align2/BandedAlignerConcrete.java; VERDICT r2 missing #4).

@@ -1,8 +1,8 @@
-"""TPU wavefront implementation of the multi-state banded affine DP.
+"""XLA wavefront implementation of the multi-state banded affine DP.
 
 Same scoring semantics as the NumPy oracle (ops/msa_ref.py; reference:
-align2/MultiStateAligner11ts.java:623-866) but reformulated for the TPU
-vector unit: the DP is swept along anti-diagonals, so every cell on a wave
+align2/MultiStateAligner11ts.java:623-866) but reformulated as vector
+work: the DP is swept along anti-diagonals, so every cell on a wave
 depends only on the two previous waves and the whole wave is one vector op.
 The per-cell packed int32 ``score << 11 | streak`` encoding is preserved
 exactly, so scores are bit-identical to the reference.
@@ -448,14 +448,9 @@ for _c in b"ACGTU":
     _DEFINED_TABLE[_c] = True
 
 
-def _walk_device(prevs, read, ref, col0, st0, R: int, C: int,
-                 steps: int = 0):
+def _walk_device(prevs, read, ref, col0, st0, R: int, C: int):
     """Traceback walk on device. prevs: (R+C, R+1) uint8; returns
-    (symbols (steps,) uint8 reversed order, out_len, gaps, row_end).
-    ``steps`` (default R+C, the hard maximum) bounds the serial scan —
-    callers with narrow DP windows pass R + max-deletion-span and treat
-    row_end > 0 (walk truncated) as a retry/fallback signal, trading
-    the guaranteed bound for ~40% fewer serial steps.
+    (symbols (R+C,) uint8 reversed order, out_len, gaps).
 
     Active steps are a contiguous prefix of the walk (a step is active
     iff row > 0, and row is non-increasing), so the output position of
@@ -468,7 +463,6 @@ def _walk_device(prevs, read, ref, col0, st0, R: int, C: int,
     # pack per-position predicates into ONE gatherable word per side —
     # the walk is a serial scan of tiny-vector steps, so every
     # non-fusable gather inside the body costs a full step of latency
-    # (measured: the walk dominated the fused trace stage)
     read_prop = read_i | (jnp.where(defined[read_i], 1, 0) << 8)
     ref_prop = ref_i | (jnp.where(defined[ref_i], 1, 0) << 8) \
         | (jnp.where(ref_i == GAPC, 1, 0) << 9)
@@ -512,18 +506,18 @@ def _walk_device(prevs, read, ref, col0, st0, R: int, C: int,
               jnp.int32(0))
     # unroll: the body is a handful of tiny-vector ops, so the per-step
     # launch/loop overhead dominates — unrolling amortizes it 8x
-    (row, col, st, gaps), syms = jax.lax.scan(
-        step, carry0, None, length=steps if steps else R + C, unroll=8)
+    (_row, _col, _st, gaps), syms = jax.lax.scan(
+        step, carry0, None, length=R + C, unroll=8)
     outpos = jnp.sum((syms != 0).astype(I32))
-    return syms, outpos, gaps, row
+    return syms, outpos, gaps
 
 
 def _align_single(read, ref, R: int, C: int, rtrue=None,
                   P: ScoringProfile = _SHORT):
     prevs, score, col, state = _scan(read, ref, R, C, True, rtrue=rtrue,
                                      P=P)
-    symbols, out_len, gaps, _row = _walk_device(prevs, read, ref, col,
-                                                state, R, C)
+    symbols, out_len, gaps = _walk_device(prevs, read, ref, col, state,
+                                          R, C)
     return symbols, out_len, gaps, score, col, state
 
 

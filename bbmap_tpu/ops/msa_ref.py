@@ -2,8 +2,8 @@
 
 Bit-exact reimplementation of the reference aligner's fillUnlimited /
 traceback2 semantics (reference: align2/MultiStateAligner11ts.java:612-866,
-1102-1232). Used as the property-test ground truth for the JAX/Pallas
-kernels; NOT a production path.
+1102-1232). Used as the property-test ground truth for the XLA
+wavefront (ops/msa_jax.py); NOT a production path.
 
 DP model: three int32 planes (MS, DEL, INS), each cell packing
 ``score << 11 | streak``. Penalties depend on the current state run length

@@ -1,4 +1,4 @@
-"""Device (TPU) pair-overlap scan for BBMerge — the all-insert-sizes ×
+"""Device pair-overlap scan for BBMerge — the all-insert-sizes ×
 mismatch reduction run as ONE jitted program per pair batch
 (reference: jni/BBMergeOverlapper.c:389-489 mateByOverlapJNI*,
 jgi/BBMergeOverlapper.java:52-102; VERDICT r2 missing #2).

@@ -1,31 +1,58 @@
-"""Multi-host execution: jax.distributed + per-host read striping.
+"""Multi-process execution: jax.distributed + per-process read striping.
 
 The reference's distributed story is a stubbed MPI master-broadcast
 stream (reference: stream/ConcurrentReadInputStreamD.java:17 — send/recv
 bodies are TODO; rank ownership by ``ln.id % ranks``,
-:157,206). The TPU-native replacement (SURVEY.md §5.8):
+:157,206). The replacement here (SURVEY.md §5.8):
 
-- `init()` wires the hosts of a pod slice together
-  (jax.distributed.initialize); collectives then ride ICI/DCN.
-- reads are NOT broadcast: every host opens the shared file and keeps
+- `init()` wires the processes together (jax.distributed.initialize).
+  Each process opens only its own card (`pin_card`), so N processes
+  share a machine of N cards.
+- reads are NOT broadcast: every process opens the shared file and keeps
   only its stripe of batches (same ``batch_id % hosts == host`` ownership
   as the reference, without the master rank).
-- each host writes its own SAM shard; `merge_shards` concatenates in
+- each process writes its own SAM shard; `merge_shards` concatenates in
   batch order (ordered-output contract, reference mechanism P6).
 """
 
 from __future__ import annotations
 
+import glob
 import os
 from typing import Iterator, List, Optional
 
 import jax
 
 
+def local_card_count() -> int:
+    """NVIDIA cards this machine exposes, counted from their device
+    nodes so that no JAX backend starts (a backend reserves most of the
+    memory of every card it sees)."""
+    return len(glob.glob("/dev/nvidia[0-9]*"))
+
+
+def card_for(process_id: int, n_cards: int) -> Optional[int]:
+    """The card process ``process_id`` uses: ``process_id % n_cards``,
+    or None on a machine without cards."""
+    return process_id % n_cards if n_cards > 0 else None
+
+
+def pin_card(process_id: int) -> Optional[int]:
+    """Make this process see only its own card. Call before the first
+    device use. No-op when JAX is held to the CPU or no card exists.
+    Returns the card index or None."""
+    if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
+        return None
+    card = card_for(process_id, local_card_count())
+    if card is not None:
+        jax.config.update("jax_cuda_visible_devices", str(card))
+    return card
+
+
 def init(coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
          process_id: Optional[int] = None) -> int:
-    """Initialize multi-host JAX. No-ops on a single host. Returns this
+    """Initialize multi-process JAX. No-op for one process. Returns this
     process's id."""
     if num_processes is None:
         num_processes = int(os.environ.get("BBMAP_TPU_NUM_HOSTS", "1"))
@@ -36,9 +63,11 @@ def init(coordinator_address: Optional[str] = None,
     if coordinator_address is None:
         coordinator_address = os.environ.get(
             "BBMAP_TPU_COORDINATOR", "localhost:9911")
+    card = pin_card(process_id)
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
-        num_processes=num_processes, process_id=process_id)
+        num_processes=num_processes, process_id=process_id,
+        local_device_ids=None if card is None else [card])
     return process_id
 
 

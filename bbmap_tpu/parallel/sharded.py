@@ -1,6 +1,6 @@
-"""Multi-chip execution: mesh construction and sharded alignment steps.
+"""Multi-device execution: mesh construction and sharded alignment steps.
 
-TPU-native replacement for the reference's (stubbed) MPI distributed
+Device replacement for the reference's (stubbed) MPI distributed
 stream layer (reference: stream/ConcurrentReadInputStreamD.java:17,
 align2/Shared.java:33-38; SURVEY.md §2.11 P5/§5.8). Instead of
 master-broadcast read batches over MPI ranks, read batches are sharded
@@ -79,9 +79,9 @@ def shard_batch(mesh: Mesh, arr: np.ndarray, spec: P) -> jax.Array:
 
 # ---------------------------------------------------------------------------
 # Real sharded pipeline (VERDICT r1 next-step #2): the CSR k-mer index —
-# the dominant HBM tenant at ~5 bytes/genome-base vs 0.25 for the packed
-# genome — is partitioned into contiguous genome blocks over the mesh's
-# "index" axis (reference P4: per-block sub-indexes,
+# the dominant device-memory tenant at ~5 bytes/genome-base vs 0.25 for
+# the packed genome — is partitioned into contiguous genome blocks over
+# the mesh's "index" axis (reference P4: per-block sub-indexes,
 # align2/BBIndex.java:616-642, IndexMaker4 CHROMS_PER_BLOCK). Each shard
 # runs the quickmap candidate stage (seed->chain->vote->top-K) against
 # its block; candidates all-gather over "index" and merge with the exact
@@ -275,11 +275,11 @@ def build_sharded_quickmap(mesh: Mesh, index: KmerIndex,
 # per-block search loop (align2/BBIndex.java:616-642) combined with its
 # distributed-stream rank model (stream/ConcurrentReadInputStreamD.java)
 # becomes a single SPMD program. Replicate-vs-shard policy: replication
-# (tools/bbmap.py hosts= striping) wins while the index fits one chip's
-# HBM — no per-batch collective, reads stripe so each host does 1/N of
-# the work; sharding wins when the CSR (~5 B/base + sites) exceeds HBM —
-# every host maps EVERY batch but holds only 1/N of the sites, paying
-# one K-candidate all-gather per batch over ICI.
+# (tools/bbmap.py hosts= striping) wins while the index fits one card's
+# memory — no per-batch collective, reads stripe so each process does
+# 1/N of the work; sharding wins when the CSR (~5 B/base + sites)
+# exceeds it — every process maps EVERY batch but holds only 1/N of
+# the sites, paying one K-candidate all-gather per batch.
 # ---------------------------------------------------------------------------
 
 

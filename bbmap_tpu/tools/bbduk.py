@@ -357,6 +357,8 @@ def main(argv: List[str]) -> int:
         # coordination) is deliberately NOT initialized here
         host_id = args.get_int("hostid", default=int(
             _os.environ.get("BBMAP_TPU_HOST_ID", "0")))
+        from ..parallel import multihost
+        multihost.pin_card(host_id)
 
     seqs: List[bytes] = []
     names: List[str] = []

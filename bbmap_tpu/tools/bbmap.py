@@ -1,7 +1,7 @@
 """bbmap: k-mer-indexed banded-affine-DP read aligner (CLI front-end).
 
 reference: align2/BBMap.java:24 + sh/bbmap.sh. Flag-for-flag compatible for
-the core mapping flags; TPU-native execution under the hood.
+the core mapping flags; device execution under the hood.
 """
 
 from __future__ import annotations
@@ -309,8 +309,8 @@ def main(argv: List[str]) -> int:
             res.stop += b_
 
     # optional device profiler trace around the mapping loop
-    # (SURVEY §5.1 'TPU plan: jax.profiler traces + per-phase wall
-    # timers'; view with tensorboard/xprof)
+    # (SURVEY §5.1: jax.profiler traces + per-phase wall timers;
+    # view with tensorboard/xprof)
     # NOTE: "profile=" is the SCORING-profile flag (profile=pacbio);
     # only profiledir= starts the jax profiler trace
     profile_dir = args.get("profiledir")
@@ -518,7 +518,7 @@ def acc_main(argv: List[str]) -> int:
     """bbmapacc: the accuracy-leaning variant (reference:
     align2/BBMapAcc.java setDefaults:44-66 — denser seeding
     keyDensity 2.3/3.2/1.8, MIN_APPROX_HITS_TO_KEEP=1, up to 8 site
-    scores). The TPU engine has ONE unified index/thread stack (the CSR
+    scores). This engine has ONE unified index/thread stack (the CSR
     block layout already is BBIndexAcc/BBIndex5's flat-array design),
     so the variant is its parameter set, applied here."""
     from ..align import seed

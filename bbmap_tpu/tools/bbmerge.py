@@ -228,6 +228,9 @@ def main(argv: List[str]) -> int:
     host_id = args.get_int("hostid", default=int(
         _os.environ.get("BBMAP_TPU_HOST_ID", "0"))) \
         if num_hosts > 1 else 0
+    if num_hosts > 1:
+        from ..parallel import multihost
+        multihost.pin_card(host_id)
 
     merger = BBMerge(**p)
     shards = {}

@@ -64,6 +64,9 @@ def main(argv: List[str]) -> int:
     host_id = args.get_int("hostid", default=int(
         _os.environ.get("BBMAP_TPU_HOST_ID", "0"))) \
         if num_hosts > 1 else 0
+    if num_hosts > 1:
+        from ..parallel import multihost
+        multihost.pin_card(host_id)
     shards = {}
     out_fmt1 = fastx.sniff_format(out1) if out1 else None
     if num_hosts > 1:

@@ -1,14 +1,14 @@
-"""Tool-kernel throughput evidence (VERDICT r3 #5 / BASELINE.json
-configs 3-4): BBDuk adapter k-mer scanning and BBMerge overlap
-detection, device path vs host numpy path, on 1M-read batches.
+"""Tool-kernel throughput (BASELINE.json configs 3-4): BBDuk adapter
+k-mer scanning, BBMerge overlap detection, Seal attribution and long-read
+mapping, device path vs host numpy path.
 
 Prints one JSON line per tool:
   {"metric": "bbduk_truseq_k23_hd1_reads_per_sec", "value": ..,
    "host_value": .., "device_speedup": ..}
   {"metric": "bbmerge_reads_per_sec", ...}
 
-Run on the TPU: python bench_tools.py
-(results recorded in docs/ROUND4_NOTES.md and TOOLBENCH_r04.json)
+Run on the GPU: python bench_tools.py (TOOLBENCH_ONLY=name,... selects
+tools). No GPU figure has been recorded yet (PERF.md).
 """
 import json
 import os

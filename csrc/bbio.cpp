@@ -2,7 +2,7 @@
 //
 // The reference offloads its host hot loops to C via JNI (reference:
 // jni/MultiStateAligner11tsJNI.c, jni/BBMergeOverlapper.c); in this
-// framework the alignment kernels run on TPU (Pallas/XLA), and the
+// framework the alignment kernels run on the device (XLA), and the
 // host-side hot loops are the text codecs. This library provides:
 //
 //  - fastq_scan:    single-pass FASTQ record boundary scanner (memchr)

@@ -1,12 +1,7 @@
-"""Exactness tests for the gather-avoidance primitives in
-align/quickmap_device: the one-hot-matmul take (MXU path), the flattened
-take_flat layout, and the row-gather word extraction.
-
-Regression guard for the 16-bit-half one-hot bug (round 4): the MXU's
-default f32 matmul rounds operands to bf16 (8 significand bits), so any
-decomposition with >8-bit pieces silently corrupts large values — small
-test genomes masked it; phiX-scale coordinates exposed it (196 -> 188
-mapped). These tests sweep the FULL int32 range.
+"""Exactness tests for the gather primitives in align/quickmap_device:
+the candidate stage's row take (take_along_flat), the flattened
+take_flat layout, and the row-gather word extraction. These tests sweep
+the FULL int32 range (large genome coordinates and sentinels).
 """
 import numpy as np
 import jax
@@ -16,7 +11,7 @@ import pytest
 from bbmap_tpu.align import quickmap_device as qd
 
 
-def test_onehot_take_rows_full_int32_range():
+def test_take_along_flat_full_int32_range():
     rng = np.random.default_rng(1)
     B, n, K = 512, 128, 8
     vals = [rng.integers(-2 ** 31, 2 ** 31 - 1, (B, n),
@@ -28,9 +23,9 @@ def test_onehot_take_rows_full_int32_range():
     vals[1][2, :] = -1
     idx = rng.integers(0, n, (B, K)).astype(np.int32)
 
-    outs = jax.jit(lambda a, b, c, i: qd.onehot_take_rows(
-        [a, b, c], i, n))(*[jnp.asarray(v) for v in vals],
-                          jnp.asarray(idx))
+    outs = jax.jit(lambda a, b, c, i: [qd.take_along_flat(x, i)
+                                       for x in (a, b, c)])(
+        *[jnp.asarray(v) for v in vals], jnp.asarray(idx))
     for v, o in zip(vals, outs):
         np.testing.assert_array_equal(np.asarray(o),
                                       np.take_along_axis(v, idx, axis=1))

@@ -222,18 +222,3 @@ def test_pack_roundtrip():
     got = np.asarray(fused_device.unpack_reads_device(codes2, nmask, 101))
     want = fused_device._B2C[bases]
     assert np.array_equal(got, np.minimum(want, 4))
-
-
-def test_fused_parity_pallas(setup, monkeypatch):
-    """The Pallas score/fill kernels wired into the fused program
-    (BBMAP_FUSED_PALLAS=1, interpret mode on CPU) must reproduce the
-    XLA fused path exactly."""
-    monkeypatch.setenv("BBMAP_FUSED_PALLAS", "1")
-    fused, unfused = _pair(setup)
-    batch = make_reads(setup, 64, L=48, seed=5)
-    mf = fused.map_batch_columnar(batch)
-    monkeypatch.setenv("BBMAP_FUSED_PALLAS", "0")
-    fused2, _ = _pair(setup)
-    mu = fused2.map_batch_columnar(batch)
-    assert mf.mapped.sum() > 40
-    assert_mb_equal(mf, mu)

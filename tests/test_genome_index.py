@@ -1,7 +1,4 @@
-"""Genome packer and k-mer index tests (vs phiX bundled reference data)."""
-
-import gzip
-import os
+"""Genome packer and k-mer index tests (on a seeded synthetic genome)."""
 
 import numpy as np
 import pytest
@@ -11,33 +8,32 @@ from bbmap_tpu.core.genome import (END_PADDING, MID_PADDING, START_PADDING,
 from bbmap_tpu.index.build import (build_index, reverse_complement_key,
                                    rolling_keys)
 
-PHIX = "/root/reference/resources/phix174_ill.ref.fa.gz"
-
-
 @pytest.fixture(scope="module")
-def phix():
-    return build_genome(PHIX)
+def phix(synth_fasta):
+    return build_genome(synth_fasta[0])
 
 
-def test_phix_packing(phix):
+def test_phix_packing(phix, synth_fasta):
+    seq = synth_fasta[1]
+    n = len(seq)
     assert phix.n_chroms == 1
     assert len(phix.scaffolds) == 1
     s = phix.scaffolds[0]
-    assert s.length == 5386
+    assert s.length == n
     assert s.start == START_PADDING
     arr = phix.chroms[0]
     # leading pad
     assert bool((arr[:START_PADDING] == ord("N")).all())
     # trailing pad: END_PADDING+1 Ns (reference while-loop semantics)
-    assert len(arr) == START_PADDING + 5386 + END_PADDING + 1
-    assert bool((arr[START_PADDING + 5386:] == ord("N")).all())
-    # sequence starts with phiX origin GAGTTTTATCGCTTCC
-    assert bytes(arr[START_PADDING:START_PADDING + 16]) == b"GAGTTTTATCGCTTCC"
+    assert len(arr) == START_PADDING + n + END_PADDING + 1
+    assert bool((arr[START_PADDING + n:] == ord("N")).all())
+    # the packed body is the FASTA's sequence, line breaks removed
+    assert bytes(arr[START_PADDING:START_PADDING + n]) == seq
 
 
-def test_locate(phix):
+def test_locate(phix, synth_fasta):
     scaf, off = phix.locate(1, START_PADDING + 100)
-    assert "phiX174" in scaf.name
+    assert synth_fasta[2] in scaf.name
     assert off == 100
 
 

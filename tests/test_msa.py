@@ -156,98 +156,3 @@ def test_variable_rows_trace(rng):
     pe, se, ce, ste = msa_jax.msa_trace_single(rd, rf, L, C)
     me = msa_jax.traceback_prevs(rd, rf, np.asarray(pe), int(ce), int(ste))
     assert m == me and int(s[0]) == int(se)
-
-
-def test_pallas_kernel_interpret(rng):
-    """Pallas DP kernel (interpret mode) must match the XLA scan."""
-    from jax.experimental import pallas as pl
-    import bbmap_tpu.ops.msa_pallas as mp
-    orig = mp.pl.pallas_call
-
-    def interp_call(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    mp.pl.pallas_call = interp_call
-    try:
-        R, C, B = 24, 40, 8
-        reads = np.full((B, R), ord("N"), np.uint8)
-        refs = np.stack([make_case(rng, R, C)[1] for _ in range(B)])
-        rows = np.zeros(B, np.int32)
-        for i in range(B):
-            L = int(rng.integers(12, R + 1))
-            rows[i] = L
-            off = int(rng.integers(0, C - L))
-            reads[i, :L] = refs[i, off:off + L]
-        s, c, st = mp.score_batch(reads, refs, rows, BB=8)
-        se, ce, ste = (np.asarray(x) for x in msa_jax.msa_score_batch_var(
-            reads, refs, rows, R, C))
-        assert np.array_equal(s, se)
-        assert np.array_equal(c, ce)
-        assert np.array_equal(st, ste)
-    finally:
-        mp.pl.pallas_call = orig
-
-
-def test_pallas_transposed_score_matches_xla(rng):
-    """Transposed-layout Pallas score kernel (jobs on lanes) is
-    bit-identical to the XLA scan."""
-    import bbmap_tpu.ops.msa_pallas as mp
-    import jax.numpy as jnp
-    R, C = 40, 64
-    B = 16
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    reads = rng.choice(bases, size=(B, R))
-    refs = rng.choice(bases, size=(B, C))
-    refs[:, 10:10 + R] = reads
-    mut = rng.random((B, C)) < 0.05
-    refs = np.where(mut, rng.choice(bases, size=(B, C)), refs)
-    refs[0, 20:25] = refs[0, 25:30]          # structural noise
-    rows = np.full(B, R, np.int32)
-    r1, r0, rp, rw = mp.prep_operands_t_device(
-        jnp.asarray(reads), jnp.asarray(refs), jnp.asarray(rows), R, C)
-    out = np.asarray(mp.msa_score_pallas_t(r1, r0, rp, rw, R, C, 8))
-    se, ce, ste = (np.asarray(x) for x in msa_jax.msa_score_batch_var(
-        jnp.asarray(reads), jnp.asarray(refs), jnp.asarray(rows),
-        R, C))
-    np.testing.assert_array_equal(out[0], se)
-    np.testing.assert_array_equal(out[1], ce)
-    np.testing.assert_array_equal(out[2], ste)
-
-
-def test_pallas_transposed_fill_prevs_match_xla(rng):
-    """Fill variant's packed prev codes equal msa_jax's prevs, and
-    traceback through them produces identical symbol strings."""
-    import bbmap_tpu.ops.msa_pallas as mp
-    import jax.numpy as jnp
-    R, C = 30, 48
-    B = 8
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    reads = rng.choice(bases, size=(B, R))
-    refs = rng.choice(bases, size=(B, C))
-    refs[:, 8:8 + R] = reads
-    # implant indels so DP paths leave the diagonal
-    refs[1, 15:20] = bases[rng.integers(0, 4, 5)]
-    reads[2, 10:13] = bases[rng.integers(0, 4, 3)]
-    rows = np.full(B, R, np.int32)
-    r1, r0, rp, rw = mp.prep_operands_t_device(
-        jnp.asarray(reads), jnp.asarray(refs), jnp.asarray(rows), R, C)
-    out, prevs = mp.msa_fill_pallas_t(r1, r0, rp, rw, R, C, 8)
-    out = np.asarray(out)
-    prevs = np.asarray(prevs)                # (R+C, R+1, B)
-    pe, se, ce, ste = None, None, None, None
-    prevs_x, se, ce, ste = msa_jax.msa_trace_batch(
-        jnp.asarray(reads), jnp.asarray(refs), R, C)
-    prevs_x = np.asarray(prevs_x)            # (B, R+C, R+1)
-    np.testing.assert_array_equal(out[0], np.asarray(se))
-    np.testing.assert_array_equal(
-        prevs.transpose(2, 0, 1), prevs_x)
-    # full traceback equality
-    for b in range(B):
-        m1 = msa_jax.traceback_prevs(reads[b], refs[b],
-                                     prevs[:, :, b],
-                                     int(out[1][b]), int(out[2][b]))
-        m2 = msa_jax.traceback_prevs(reads[b], refs[b], prevs_x[b],
-                                     int(np.asarray(ce)[b]),
-                                     int(np.asarray(ste)[b]))
-        assert m1 == m2

@@ -1,6 +1,6 @@
 """Device overlap-scan parity: ops/overlap_device must reproduce the
-host ladders bit for bit (VERDICT r2 missing #2 — TPU-native
-BBMergeOverlapper). Runs on the CPU backend; same XLA on TPU."""
+host ladders bit for bit (the device BBMergeOverlapper). Runs on the
+CPU backend; the same XLA runs on the GPU."""
 
 import numpy as np
 import pytest

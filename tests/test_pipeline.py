@@ -1,5 +1,5 @@
-"""End-to-end mapping tests: synthetic reads from phiX through the full
-pipeline (SURVEY.md §4: synthetic-truth grading is the reference's test
+"""End-to-end mapping tests: synthetic reads from a seeded phage-sized
+genome through the full pipeline (SURVEY.md §4: synthetic-truth grading is the reference's test
 harness)."""
 
 import numpy as np
@@ -13,12 +13,9 @@ from bbmap_tpu.core.genome import START_PADDING, build_genome
 from bbmap_tpu.index.build import analyze_index, build_index
 from bbmap_tpu.io.fastx import SeqRecord
 
-PHIX = "/root/reference/resources/phix174_ill.ref.fa.gz"
-
-
 @pytest.fixture(scope="module")
-def aligner():
-    g = build_genome(PHIX)
+def aligner(synth_fasta):
+    g = build_genome(synth_fasta[0])
     idx = build_index(g, 13)
     analyze_index(idx, 0.0)
     return BBMapAligner(g, idx)

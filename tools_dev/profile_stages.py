@@ -58,7 +58,7 @@ def main():
     ccnt_d = qd.ccnt_array(index) if cfg.ref_admit else None
     choff_d = jax.device_put(np.asarray(index.chrom_offsets, np.int32))
     den2, den3 = seed_host.key_density_ladder(L, index.k)
-    inv_a = jnp.float32(1.0) / jnp.float32(100 * index.k)
+    inv_a = np.float32(1.0) / np.float32(100 * index.k)
     ladder_np = np.asarray(cfg.offsets_list, np.int32)
 
     c2a, nma = fd.pack_reads_host(np.ascontiguousarray(r1[:, :L]))
@@ -67,8 +67,16 @@ def main():
     host_os = native.quality_offsets_scores(
         qcat, L, index.k, seed_host.PROB_CORRECT, ladder_np, den3,
         100 * index.k)
-    assert host_os is not None, "host-C quality path unavailable"
-    o16, s16, rej = host_os
+    if host_os is not None:
+        o16, s16, rej = host_os
+    else:
+        # no native library: the device quality stage, run once outside
+        # the timed programs, supplies the same three inputs
+        qpack, pal, pcp = qd.pack_quality_host(qcat, L)
+        o16, wts, rej = jax.jit(lambda a, b, c: qd.quality_offsets_stage_packed(
+            cfg, a, b, c, den2, den3, return_weights=True))(qpack, pal, pcp)
+        o16, rej = np.asarray(o16), np.asarray(rej)
+        s16 = np.rint(np.asarray(wts) / inv_a).astype(np.int16)
     rej8 = rej.astype(np.uint8)
     apd32 = jnp.int32(250)
     pair_ctx = {"apd": apd32, "chrom_offsets": choff_d,
@@ -141,12 +149,14 @@ def main():
                       "min_gate": min_gate}, _stop_after=_sp)
             if isinstance(out, dict):
                 out = list(out.values())
+            # reduce EVERY element: a partial slice lets XLA drop the
+            # work behind the rest of the output
             if isinstance(out, (tuple, list)):
                 tot = jnp.int32(0)
                 for v in out:
-                    tot = tot + v.astype(jnp.int32).ravel()[:8].sum()
+                    tot = tot + v.astype(jnp.int32).sum()
                 return tot
-            return out.astype(jnp.int32).ravel()[:8].sum()
+            return out.astype(jnp.int32).sum()
 
         timeit(f"fused:{sp}", progf, c2a, nma, c2b, nmb, o16, s16,
                rej8, starts_d, sites_d, gpack_d, nmask_d, scnt_d,
